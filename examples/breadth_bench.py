@@ -1,11 +1,10 @@
 """Breadth benchmark: every flagship part through the production
 compact path, warm SDF->STL (in-memory), one row per part.
 
-This is the committed, reproducible source of docs/PERFORMANCE.md's
-breadth table (implementation: gsdf_tpu.cli.breadth_main, also the
-`gsdf-tpu-breadth` console script). All four counts are golden gates.
+Implementation: gsdf_tpu.cli.breadth_main, also the `gsdf-tpu-breadth`
+console script. All four counts are golden gates.
 
-Run on the chip: python examples/breadth_bench.py
+Run on the GPU: python examples/breadth_bench.py
 """
 from _common import example_args  # noqa: F401  (ensures gsdf_tpu importable)
 

@@ -1,8 +1,8 @@
-"""Microbenchmark: stream-compaction strategies on the real chip.
+"""Microbenchmark: stream-compaction strategies on the GPU.
 
 Compares mc_emit.compact_indices methods (searchsorted / sort / scatter)
 at production grid sizes, plus the end-to-end effect on the flange
-compact render. Run with the chip idle; checksum-forced timings.
+compact render. Run with the card idle; checksum-forced timings.
 """
 import statistics
 import time

@@ -1,10 +1,9 @@
-"""Pruned-vs-dense comparison at production scale (VERDICT r2 item 5).
+"""Pruned-vs-dense comparison at production scale.
 
-Round-1 measured pruning at resdiv 400 (6.6M cubes) and rejected it for
-the fused path because the coarse pass adds dispatches that dominate at
-that size (docs/PERFORMANCE.md "Non-wins"). At resdiv 800 (52M cubes) and
-1000 (102M cubes) dense classification costs 8-16x more, so the
-conclusion may invert — this measures it.
+At resdiv 400 (6.6M cubes) the pruned renderer's coarse pass adds
+dispatches that may dominate; at resdiv 800 (52M cubes) and 1000 (102M
+cubes) dense classification costs 8-16x more, so the answer may invert —
+this measures it (not measured on the GPU yet).
 
 Per size, warm medians of:
   dense-compact : FlatRenderer.render_compact() — the production path

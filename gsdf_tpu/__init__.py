@@ -1,6 +1,6 @@
-"""gsdf_tpu — a TPU-native signed-distance-function CAD kernel in JAX.
+"""gsdf_tpu — a signed-distance-function CAD kernel in JAX.
 
-A ground-up rebuild of the capabilities of soypat/gsdf for TPU hardware:
+A ground-up rebuild of the capabilities of soypat/gsdf on JAX/XLA:
 the CSG tree is a tree of jnp distance functions traced once by jax.jit
 (replacing GLSL codegen + OpenGL compute), rendering is vectorized
 device-side marching cubes / dual contouring, and engineering layers

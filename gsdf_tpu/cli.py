@@ -13,6 +13,10 @@ vs_baseline  = baseline_ms / value. Baseline is the reference's best
 The warm-up run compiles (or loads from the persistent compile cache) every
 executable; steady-state production rendering is the regime the reference's
 numbers describe (its GLSL compile is likewise excluded from render ms).
+
+The line names the device it ran on (platform, device_kind, count).
+bench_main and breadth_main refuse to time the CPU backend: they exit
+non-zero when the default JAX device is the CPU.
 """
 from __future__ import annotations
 
@@ -60,11 +64,25 @@ def _bench_part(obj, resdiv, golden, repeats):
     # the perf number is also a correctness gate: exact reference count
     if golden is not None:
         assert ntris == golden, f"triangle count {ntris} != golden {golden}"
-    times = [run()[0] for _ in range(repeats)]  # link noise: take the median
+    times = [run()[0] for _ in range(repeats)]
     return statistics.median(times), ntris
 
 
+def _accelerator_devices():
+    """jax.devices(), refusing a CPU default: these benchmarks time an
+    accelerator, and the goldens they assert are its counts."""
+    import jax
+
+    devices = jax.devices()
+    if devices[0].platform == "cpu":
+        raise SystemExit(
+            "the default JAX device is the CPU; this benchmark times an accelerator"
+        )
+    return devices
+
+
 def bench_main():
+    devices = _accelerator_devices()
     flange_ms, flange_tris = _bench_part(
         build_flange(), 400, GOLDEN_FLANGE_TRIS, repeats=7
     )
@@ -83,6 +101,9 @@ def bench_main():
                 "unit": "ms",
                 "vs_baseline": round(baseline_ms / flange_ms, 2),
                 "triangles": flange_tris,
+                "platform": devices[0].platform,
+                "device_kind": devices[0].device_kind,
+                "count": len(devices),
                 "secondary": {
                     "metric": "fibonacci-showerhead resdiv350 SDF->STL warm",
                     "value": round(shower_ms, 1),
@@ -97,10 +118,10 @@ def bench_main():
 
 def breadth_main():
     """Every flagship part through the production compact path, warm
-    SDF->STL (in-memory), one row per part — the committed, reproducible
-    source of docs/PERFORMANCE.md's breadth table. Reuses `_bench_part`
+    SDF->STL (in-memory), one row per part. Reuses `_bench_part`
     verbatim so rows are directly comparable to the headline number; all
     four counts are golden gates."""
+    _accelerator_devices()
     rows = [
         ("npt-flange", build_flange(), 400, GOLDEN_FLANGE_TRIS),
         ("fibonacci-showerhead", build_showerhead(), 350, GOLDEN_SHOWERHEAD_TRIS),

@@ -3,7 +3,7 @@
 Mirrors reference gsdf.go:27-106: a `Flags` bitmask controls whether invalid
 dimensions raise immediately (default) or accumulate for later inspection via
 `err()` / `clear_errors()`. The shader-buffer flags of the reference
-(FlagUseShaderBuffers / FlagNoShaderBuffers, gsdf.go:36-39) have no TPU
+(FlagUseShaderBuffers / FlagNoShaderBuffers, gsdf.go:36-39) have no XLA
 meaning — XLA constants vs. operands replace SSBOs — but are kept as no-op
 bits for API parity so user code ports cleanly.
 """
@@ -18,7 +18,7 @@ class Flags(enum.IntFlag):
     #: don't raise on invalid shape dimensions; accumulate errors instead
     #: (reference FlagNoDimensionPanic, gsdf.go:33).
     NO_DIMENSION_PANIC = 1 << 0
-    #: kept for API parity; on TPU large vertex arrays are always device
+    #: kept for API parity; under XLA large vertex arrays are always device
     #: operands, so these bits only affect the `use_shader_buffer` heuristic.
     USE_SHADER_BUFFERS = 1 << 1
     NO_SHADER_BUFFERS = 1 << 2
@@ -68,7 +68,7 @@ class BuilderCore:
         raise ValueError("nil SDF argument: " + msg)
 
     def use_shader_buffer(self, components: int) -> bool:
-        """Heuristic parity with reference gsdf.go:53-64. On TPU this only
+        """Heuristic parity with reference gsdf.go:53-64. Under XLA this only
         decides whether vertex arrays become device operands (always fine)."""
         if self._flags & Flags.NO_SHADER_BUFFERS:
             return False

@@ -11,8 +11,8 @@ All functions operate on jnp float32 arrays and are safe under jit.
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
-import numpy as np
 
 # Constants matching reference gsdf.go:16-25.
 TRIBISECT = 0.8660254037844386467637231707529361834714026269051903140279
@@ -73,87 +73,13 @@ def cos_acos_3(x):
     return x * (x * (x * (x * -0.008972 + 0.039071) - 0.107074) + 0.576975) + 0.5
 
 
-# --- inverse trig with a lowerable fallback --------------------------------
-#
-# Mosaic (Pallas TPU) has no lowering for the atan2/acos HLO primitives, so
-# SDF code calls mathx.atan2/mathx.acos instead of jnp directly: by default
-# they ARE jnp.arctan2/jnp.arccos (bit-identical golden counts), but while a
-# Pallas kernel is being traced (eval.pallas_grid sets the switch) they
-# expand to a Cephes-style f32 polynomial (~1-ulp on the reduced range)
-# built from mul/add/select — primitives every backend lowers.
-
-_LOWERABLE_TRANSCENDENTALS = False
-
-# np scalars (NOT jnp: jax 0.9's jnp.float32(x) builds a device array,
-# which a Pallas kernel would have to capture)
-_PI = np.float32(3.14159265358979323846)
-_PI_2 = np.float32(1.57079632679489661923)
-_PI_4 = np.float32(0.78539816339744830962)
-
-
-def _atan_poly(x):
-    """Cephes atanf polynomial, |x| <= tan(pi/8)."""
-    z = x * x
-    return (
-        ((8.05374449538e-2 * z - 1.38776856032e-1) * z + 1.99777106478e-1) * z
-        - 3.33329491539e-1
-    ) * z * x + x
-
-
-def _atan_lowerable(x):
-    ax = jnp.abs(x)
-    big = ax > 2.414213562373095  # tan(3*pi/8)
-    mid = ax > 0.4142135623730950  # tan(pi/8)
-    safe = jnp.where(big, ax, 1.0)
-    xr = jnp.where(
-        big, -1.0 / safe, jnp.where(mid, (ax - 1.0) / (ax + 1.0), ax)
-    )
-    y = _atan_poly(xr)
-    y = y + jnp.where(big, _PI_2, jnp.where(mid, _PI_4, np.float32(0.0)))
-    # signbit, not x<0: atan(-0.0) is -0.0 (atan2 seam sign rides on this)
-    return jnp.where(jnp.signbit(x), -y, y)
-
-
-def _atan2_lowerable(y, x):
-    safe_x = jnp.where(x == 0, 1.0, x)
-    r = _atan_lowerable(y / safe_x)
-    # quadrant correction selected by signbit(y), not y<0, so atan2(-0.0,
-    # x<0) returns -pi exactly as jnp.arctan2 does (no 2*pi seam between
-    # the Pallas and XLA backends on the y=0 half-plane)
-    sy = jnp.signbit(y)
-    r = jnp.where(x < 0, jnp.where(sy, r - _PI, r + _PI), r)
-    r = jnp.where(
-        x == 0,
-        jnp.where(
-            y > 0,
-            _PI_2,
-            jnp.where(
-                y < 0,
-                -_PI_2,
-                # y == +-0: x == -0.0 gives +-pi, x == +0.0 gives +-0
-                jnp.where(
-                    jnp.signbit(x),
-                    jnp.where(sy, -_PI, _PI),
-                    jnp.where(sy, -np.float32(0.0), np.float32(0.0)),
-                ),
-            ),
-        ),
-        r,
-    )
-    return r
-
-
 def atan2(y, x):
-    """jnp.arctan2, or the lowerable expansion inside Pallas traces."""
-    if _LOWERABLE_TRANSCENDENTALS:
-        return _atan2_lowerable(y, x)
+    """jnp.arctan2 (the one spelling every node uses)."""
     return jnp.arctan2(y, x)
 
 
 def acos(x):
-    """jnp.arccos, or atan2(sqrt(1-x^2), x) inside Pallas traces."""
-    if _LOWERABLE_TRANSCENDENTALS:
-        return _atan2_lowerable(jnp.sqrt(jnp.maximum(1.0 - x * x, 0.0)), x)
+    """jnp.arccos (the one spelling every node uses)."""
     return jnp.arccos(x)
 
 
@@ -168,44 +94,10 @@ def scan_fold(body, init, xs, unroll: int = 1):
     fold itself (or a float64 oracle with tolerance).
 
     Why opt in: each scan step round-trips the carry (and the point
-    batch it closes over) through HBM — on a 512^3 flange-polygon fold
-    that is ~16 B/point/step of carry traffic, and unrolling keeps it
-    in registers across steps. Measured on the v5e (flange tree,
-    512^3): 0.99 -> 2.45 Geval/s at unroll=8 (saturates there; the
-    Polygon2D edge fold passes unroll=8 explicitly).
-
-    Inside Pallas traces this becomes a fori_loop with dynamic row
-    indexing: Mosaic lowers scan only without extensive inputs/outputs."""
-    import jax
-
-    if _LOWERABLE_TRANSCENDENTALS:
-        n = int(xs.shape[0])
-        row_shape = xs.shape[1:]
-        xs2 = xs.reshape(n, -1)
-
-        def fbody(i, carry):
-            # one-hot row select: Mosaic lowers neither dynamic_slice on
-            # values nor 1-D iota, so gather row i as a masked reduction
-            # over the (small) xs array — O(len(xs)) scalars per step
-            rows = jax.lax.broadcasted_iota(jnp.int32, (n, 1), 0)
-            row = jnp.sum(jnp.where(rows == i, xs2, 0), axis=0)
-            out, _ = body(carry, row.reshape(row_shape))
-            return out
-
-        return jax.lax.fori_loop(0, n, fbody, init), None
+    batch it closes over) through device memory — on a flange-polygon
+    fold that is ~16 B/point/step of carry traffic, and unrolling keeps
+    it in registers across steps (the Polygon2D edge fold passes
+    unroll=8; the gain on the GPU is not measured)."""
     return jax.lax.scan(
         body, init, xs, unroll=max(1, min(int(unroll), int(xs.shape[0])))
     )
-
-
-class lowerable_transcendentals:
-    """Context manager: trace with polynomial inverse-trig (Pallas)."""
-
-    def __enter__(self):
-        global _LOWERABLE_TRANSCENDENTALS
-        self._saved = _LOWERABLE_TRANSCENDENTALS
-        _LOWERABLE_TRANSCENDENTALS = True
-
-    def __exit__(self, *exc):
-        global _LOWERABLE_TRANSCENDENTALS
-        _LOWERABLE_TRANSCENDENTALS = self._saved

@@ -1,4 +1,4 @@
-"""SDF tree node contracts — the TPU-native replacement for the reference's
+"""SDF tree node contracts — the JAX replacement for the reference's
 dual Shader3D/Shader2D + CPU-evaluator architecture.
 
 In the reference, every node implements (a) GLSL codegen (glbuild/glbuild.go:25-90)

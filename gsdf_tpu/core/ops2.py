@@ -226,8 +226,8 @@ class Rotation2D(Shader2D):
 
     def distance(self, p):
         # elementwise mul-adds, not `p @ rot.T` — see
-        # ops3.Transform.distance: TPU matmuls default to bfloat16
-        # inputs on the MXU; expanded products stay f32 on the VPU
+        # ops3.Transform.distance: a float32 dot may run at reduced
+        # precision on an accelerator; expanded products stay f32
         rot = self.t_inv
         x, y = p[..., 0], p[..., 1]
         return self.s.distance(

@@ -114,12 +114,11 @@ class OpUnion(Shader3D):
                             None,
                         )
 
-                init = jnp.full(p.shape[:-1], mx.LARGENUM, dtype=jnp.float32)
+                init = jnp.full(p.shape[:-1], mx.LARGENUM, dtype=p.dtype)
                 # unroll=1: unrolling the subtree body changes XLA's fusion
                 # contraction (1-ulp drift vs the sequential reduction,
-                # breaking the scan==sequential bit-exact guarantee) and
-                # measured only noise-level end-to-end gain on the
-                # showerhead (eval is a minor term at render resolutions)
+                # breaking the scan==sequential bit-exact guarantee); its
+                # end-to-end gain on the GPU is not measured
                 dg, _ = mx.scan_fold(body, init, xs, unroll=1)
                 d = dg if d is None else jnp.minimum(d, dg)
             else:
@@ -323,13 +322,13 @@ class Transform(Shader3D):
         )
 
     def distance(self, p):
-        # elementwise mul-adds, NOT `p @ rot.T`: a (N,3)x(3,3) dot is
-        # dispatched to the TPU MXU, whose default matmul precision
-        # truncates inputs to bfloat16 — measured 0.036 absolute
-        # deviation vs the CPU oracle on the bolt scene (0.4 voxels at
-        # resdiv 256), the single source of cross-backend sign flips.
-        # Expanded products stay on the VPU in full f32 (and skip the
-        # ~10x MXU padding waste of a 3-wide matmul).
+        # elementwise mul-adds, NOT `p @ rot.T`: an accelerator may run a
+        # float32 dot at reduced precision (bfloat16 inputs on a matrix
+        # unit, TF32 on a GPU's tensor cores), which moves corner signs
+        # against the CPU oracle (0.4 voxels on the bolt scene at resdiv
+        # 256 when this was a dot). Expanded products stay full f32, and
+        # tests/test_bringup.py keeps dot_general out of the flagship
+        # trees.
         rot = self.t_inv[:3, :3]
         trans = self.t_inv[:3, 3]
         x, y, z = p[..., 0], p[..., 1], p[..., 2]

@@ -66,7 +66,7 @@ class Line2D(Shader2D):
 class Lines2D(Shader2D):
     """Batch of thick segments, min-reduced (cpu_evaluators.go:1145,
     primitives2d.go:70). Segments become one device gather-free broadcast —
-    the SSBO/inline split of the reference is irrelevant on TPU."""
+    the SSBO/inline split of the reference is irrelevant under XLA."""
 
     PARAMS = ("points", "width")
 
@@ -287,9 +287,9 @@ class Ellipse2D(Shader2D):
         # one trig-free Newton polish on the closest-point angle
         # (co, si) = (cos t, sin t): t <- t - g/g' where g = dD/dt of the
         # squared distance. The closed form above is exact in reals but
-        # TPU transcendental rounding (acos/cbrt are polynomial
-        # approximations) costs up to ~4e-4 near the boundary; the polish
-        # restores float32-limited accuracy on every backend.
+        # acos/cbrt rounding differs between backends and can cost up to
+        # ~4e-4 near the boundary; the polish restores float32-limited
+        # accuracy on every backend.
         gg = (b * b - a * a) * si * co + a * sx * si - b * sy * co
         gp = (b * b - a * a) * (co * co - si * si) + a * sx * co + b * sy * si
         delta = jnp.where(jnp.abs(gp) > _f32(1e-30), gg / gp, 0.0)
@@ -376,11 +376,11 @@ class Polygon2D(Shader2D):
             return (d, nflips + flip.astype(jnp.int32)), None
 
         init = (
-            jnp.full(p.shape[:-1], np.float32(np.inf), dtype=jnp.float32),
+            jnp.full(p.shape[:-1], np.inf, dtype=p.dtype),
             jnp.zeros(p.shape[:-1], dtype=jnp.int32),
         )
-        # unroll=8: the measured 2.5x eval-throughput win (keeps the
-        # carry in registers; see scan_fold's contract note). The fold's
+        # unroll=8: keeps the carry in registers (see scan_fold's
+        # contract note; the gain on the GPU is not measured). The fold's
         # min/flip accumulation is pinned against the float64 numpy
         # oracle in tests, not against a sequential fold, so contraction
         # re-association under unrolling is within its tolerance budget.

@@ -3,7 +3,7 @@
 
 The reference compiles one-off GLSL compute shaders per operation to
 combine distance buffers GPU-side (the building block for CSG over
-sectioned SDFs). On TPU each operation is a jitted elementwise kernel;
+sectioned SDFs). Here each operation is a jitted elementwise kernel;
 arbitrary expressions are user callables over jnp arrays instead of GLSL
 strings.
 """

@@ -1,10 +1,10 @@
 """Evaluation backends: jit-compiled batched SDF evaluation.
 
-TPU-native replacement for the reference's gleval package:
+JAX replacement for the reference's gleval package:
 
 - `SDF3`/`SDF2` evaluator wrappers replace gleval.SDF3CPU / SDF3Compute
   (gleval/cpu.go:80, gleval/gpu.go:56). One code path serves both the CPU
-  oracle and the TPU device — backend selection is a jax device, not a
+  oracle and the GPU — backend selection is a jax device, not a
   separate implementation.
 - The VecPool scratch machinery (gleval/cpu.go:209) has no equivalent:
   XLA's buffer allocator owns temporaries.

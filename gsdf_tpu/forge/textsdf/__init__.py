@@ -1,4 +1,4 @@
-"""TTF text -> 2D SDF (TPU rebuild of reference forge/textsdf)."""
+"""TTF text -> 2D SDF (JAX rebuild of reference forge/textsdf)."""
 from .font import Font, FontConfig
 
 __all__ = ["Font", "FontConfig"]

@@ -1,4 +1,4 @@
-"""Screw/bolt/nut/knurl machinery (TPU rebuild of reference forge/threads)."""
+"""Screw/bolt/nut/knurl machinery (JAX rebuild of reference forge/threads)."""
 from .core import Basic, Parameters, ScrewNode, Threader, metric_f2f, screw
 from .fasteners import (
     BoltParams,

@@ -1,6 +1,6 @@
 """Host-side axis-aligned bounding box algebra (float32 numpy).
 
-TPU-native rebuild of the box math used by the reference CAD kernel
+Rebuild of the box math used by the reference CAD kernel
 (soypat/geometry ms2.Box / ms3.Box as consumed by gsdf; see reference
 usage in operations.go:56-800, glrender/flatrenderer.go:47).
 

@@ -1,6 +1,6 @@
 """Vectorized device-side marching cubes — the STAGED pipeline.
 
-TPU-native replacement for the reference's per-cube CPU marching cubes
+Device-side replacement for the reference's per-cube CPU marching cubes
 (glrender/marchcubes.go:14-98). The per-cube loop becomes three phases:
 
 1. classify (jit): 256-case index + corner-0 quick-reject

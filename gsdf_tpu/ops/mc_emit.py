@@ -1,7 +1,7 @@
 """THE shared marching-cubes emit kernel.
 
 The reference has exactly ONE `mcToTriangles` (glrender/marchcubes.go:34)
-consumed by the octree, flat and test paths. This module is its TPU
+consumed by the octree, flat and test paths. This module is its device
 analog: every renderer (fused dense, welded indexed, pruned tiles,
 multi-chip sharded, staged) composes these jittable pieces instead of
 re-implementing classify -> compact -> gather -> interpolate -> emit.
@@ -97,12 +97,13 @@ def canonical_grid_eval(tree, origin, res, ix, iy, iz):
     slab by construction. The barrier costs one int32 index-buffer
     round-trip — irrelevant on the CPU test/oracle backend.
 
-    Accelerator kernels do NOT route through this helper: the TPU
-    backend compiles elementwise math without shape-dependent
-    contraction (tile-vs-dense was already bit-exact on the v5e,
-    pinned in tests), and a barrier would force an HBM round-trip of
-    the index buffer on the production path. Call sites keep their
-    fused f32 synthesis verbatim off-CPU.
+    GPU kernels do NOT route through this helper: XLA:GPU compiles
+    each element's math the same way whatever the array's shape (the
+    tile-vs-dense payload is pinned bit-exact on the card by
+    test_pruned.py::test_pruned_compact_payload_bitexact_accel), and a
+    barrier would force a device-memory round-trip of the index buffer
+    on the production path. Call sites keep their fused f32 synthesis
+    verbatim off-CPU.
     """
     gidx = jnp.stack(
         [ix.reshape(-1), iy.reshape(-1), iz.reshape(-1)], axis=-1
@@ -192,20 +193,17 @@ def compact_indices(mask_flat, size, method: str = "sort"):
 
     method="sort" (default): single-key sort — actives keep their index
     as the key, inactives get bit 30 set, so ascending order is (actives
-    in original order, then inactives). Measured fastest on the v5e at
-    production sizes (6.7M: 19 ms, 53M: 168 ms pure-device): XLA's TPU
-    sort is a tuned bitonic network, while both alternatives serialize.
+    in original order, then inactives).
 
     method="searchsorted": inclusive cumsum, then output slot s
-    binary-searches for the first index with csum == s+1. In theory an
-    O(n) memory-bound pass + size*log2(n) gathers; in practice
-    jnp.searchsorted's 23 sequential scatter-gather iterations over HBM
-    measure 2.7-4.5x SLOWER than the sort (6.7M: 51 ms, 53M: 841 ms).
-    Kept as the measured record and for inputs >= 2^30 where the sort
-    key packing runs out of bits.
+    binary-searches for the first index with csum == s+1: an O(n)
+    memory-bound pass + size*log2(n) gathers. Also the route for inputs
+    >= 2^30, where the sort key packing runs out of bits.
 
-    method="scatter": cumsum destinations + drop-mode scatter; measured
-    between the two (input-size-bound, serialized scatter)."""
+    method="scatter": cumsum destinations + drop-mode scatter, the usual
+    GPU stream compaction.
+
+    Which is fastest on the GPU is not measured yet."""
     n = mask_flat.shape[0]
     if n >= (1 << 31):
         # every strategy here indexes with int32 (sort keys, cumsum,
@@ -223,13 +221,12 @@ def compact_indices(mask_flat, size, method: str = "sort"):
         found = jnp.searchsorted(csum, slots, side="left").astype(jnp.int32)
         return jnp.where(slots <= n_active, found, -1)
     if method == "sort" and n > (1 << 21) and 16 * size < n:  # "sort-flat" skips
-        # hierarchical: sorting the whole grid dominates the dense render
-        # at scale (52M mask: 193 ms). Delegate to the ONE two-level-sort
+        # hierarchical: sorting the whole grid would dominate the dense
+        # render at scale. Delegate to the ONE two-level-sort
         # implementation (compact_indices_blocks) with block_slots = size:
         # block overflow is then subsumed by the n_active overflow signal
         # (n_blk <= n_active, so a dropped block implies n_active > size
-        # and the caller's grow-and-retry already fires). Measured: see
-        # docs/PERFORMANCE.md.
+        # and the caller's grow-and-retry already fires).
         return compact_indices_blocks(mask_flat, size, size)[0]
     if method in ("sort", "sort-flat") and n < (1 << 30):
         idx = jnp.arange(n, dtype=jnp.int32)

@@ -2,7 +2,7 @@
 
 The reference's only process-level parallelism is goroutine k-plane
 partitioning of the dense grid (glrender/flatrenderer.go:103-141). The
-TPU-native scale-out analog: shard the z (slab) axis of the corner grid over
+Device scale-out analog: shard the z (slab) axis of the corner grid over
 a `jax.sharding.Mesh`, evaluate each shard's slab locally (pure data
 parallel — zero communication, positions synthesized on device), then
 exchange a single boundary plane with the +z neighbor (ppermute over ICI)
@@ -37,8 +37,8 @@ def _replicated(mesh: Mesh, value, dtype=_f32):
     """Commit a host value to the mesh's own devices, replicated.
 
     Every operand of a sharded step must be created ON the mesh —
-    `jnp.asarray` would place it on the process default device (the real
-    TPU when one is attached), which both wastes a transfer and breaks
+    `jnp.asarray` would place it on the process default device (the
+    accelerator when one is attached), which both wastes a transfer and breaks
     hermetic CPU-mesh runs (the driver's dryrun_multichip). Integer
     operands (the slab-chunk k_base) must pass dtype=np.int32: the
     default f32 cast would silently round layer offsets >= 2^24."""

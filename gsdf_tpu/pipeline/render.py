@@ -1,4 +1,4 @@
-"""High-level render pipeline (TPU rebuild of reference gsdfaux.RenderShader3D,
+"""High-level render pipeline (JAX rebuild of reference gsdfaux.RenderShader3D,
 gsdfaux/gsdfaux.go:63-241): tree -> evaluator -> renderer -> STL/visual with
 stopwatch log lines in the reference's `[dur] msg` format.
 """
@@ -23,7 +23,9 @@ class RenderConfig:
     stl_output: Optional[BinaryIO] = None
     visual_output: Optional[TextIO] = None
     resolution: float = 0.0
-    use_gpu: bool = True  # on TPU builds this selects the accelerator device
+    #: True renders on the first GPU and raises where there is none;
+    #: False on the host CPU backend; None on JAX's default device
+    use_gpu: Optional[bool] = None
     silent: bool = False
     #: accepted for API parity with the reference's BlockCachedSDF3 option;
     #: the fused device path evaluates each grid corner exactly once, so a
@@ -53,6 +55,17 @@ def _fmt_dur(seconds: float) -> str:
     return f"{seconds:.3f}s"
 
 
+def render_device(use_gpu: Optional[bool]):
+    """The device a `use_gpu` setting names: the first GPU for True (JAX
+    raises where there is none, so a render that asked for the GPU never
+    runs on the CPU), the CPU for False, JAX's default device for None."""
+    import jax
+
+    if use_gpu is None:
+        return jax.devices()[0]
+    return jax.devices("gpu" if use_gpu else "cpu")[0]
+
+
 def render_shader3d(obj: Shader3D, cfg: RenderConfig) -> dict:
     """Render a 3D shape to STL (and optionally a shadertoy visual).
 
@@ -64,15 +77,7 @@ def render_shader3d(obj: Shader3D, cfg: RenderConfig) -> dict:
     lap = _stopwatch()
     stats: dict = {}
 
-    import jax
-
-    if cfg.device is not None:
-        device = cfg.device
-    elif cfg.use_gpu:
-        device = jax.devices()[0]
-    else:
-        device = jax.devices("cpu")[0]
-
+    device = cfg.device if cfg.device is not None else render_device(cfg.use_gpu)
     renderer = FlatRenderer(obj, cfg.resolution, device=device)
     log(f"[{_fmt_dur(lap())}] renderer init (grid {renderer.nx}x{renderer.ny}x{renderer.nz})")
 
@@ -136,7 +141,7 @@ class UIConfig:
 def ui(obj: Shader3D, cfg: UIConfig = UIConfig()):
     """Headless counterpart of the reference's interactive raymarch UI
     (gsdfaux.UI): renders an orbiting turntable of the part with the
-    TPU-side sphere tracer and optionally writes an animated GIF. Returns
+    device-side sphere tracer and optionally writes an animated GIF. Returns
     the list of (H,W,3) frames."""
     from ..visual.raymarch import turntable
 

@@ -1,7 +1,7 @@
 """Dual contouring renderer (reference glrender/dual_contour.go +
 dual_contour_vertexplacement.go).
 
-TPU-native restructuring:
+Device-native restructuring:
 - The reference evaluates 4 points per voxel (origin + 3 edge ends,
   dual_contour.go:93-99). Here ONE dense corner grid eval serves every
   voxel: the voxel's origin/edge-end distances are just neighboring grid
@@ -174,11 +174,46 @@ _OFFS = {
     2: [(-1, -1, 0), (0, -1, 0), (0, 0, 0), (-1, 0, 0)],
 }
 _OFF5 = {a: _OFFS[a] + [(0, 0, 0)] for a in _OFFS}
+# most QEF rows one voxel can receive: its 12 edges once each, plus its 3
+# owned edges a second time (the 5th _OFF5 entry)
+_MAX_VOXEL_ROWS = 15
+
+
+def sorted_segment_sum(data, seg_ids, num_segments, max_rows):
+    """Deterministic jax.ops.segment_sum for rows sorted by segment.
+
+    seg_ids must be ascending, with at most `max_rows` rows per segment;
+    ids >= num_segments are dropped. Each segment's rows are added in row
+    order, starting from zero — the order of a sequential scatter-add —
+    by `max_rows` gathers, where a scatter-add on the GPU uses atomics
+    whose order, and so whose rounding, changes from run to run."""
+    n = data.shape[0]
+    # materialized rows: a producer fused into the gathers below could be
+    # contracted into the adds (FMA), differently in each executable
+    data = jax.lax.optimization_barrier(data)
+    rows = jnp.arange(n, dtype=jnp.int32)
+    prev = jnp.concatenate([jnp.full((1,), -1, seg_ids.dtype), seg_ids[:-1]])
+    first = (seg_ids != prev) & (seg_ids < num_segments)
+    start = (
+        jnp.full((num_segments + 1,), n, jnp.int32)
+        .at[jnp.where(first, seg_ids, num_segments)]
+        .set(rows, mode="drop")[:num_segments]
+    )
+    segs = jnp.arange(num_segments, dtype=seg_ids.dtype)
+    acc = jnp.zeros((num_segments,) + data.shape[1:], data.dtype)
+    for r in range(max_rows):
+        row = jnp.minimum(start + r, n - 1)
+        ok = (start + r < n) & (seg_ids[row] == segs)
+        ok = ok.reshape(ok.shape + (1,) * (data.ndim - 1))
+        acc = acc + jnp.where(ok, data[row], 0)
+    # materialized sums, as a scatter's output is: the solve that reads
+    # them must not be fused (and contracted) into this loop
+    return jax.lax.optimization_barrier(acc)
 
 
 def dc_mesh_emit(
     tree, grid, origin, res, a_size, w_size, e_size, half, inv_step, lam,
-    k0=None, n_own=None,
+    k0=None, n_own=None, *, platform,
 ):
     """The ONE dual-contour mesh emit (CLAUDE.md one-emit discipline,
     mirroring ops/mc_emit for marching cubes): active-edge compaction ->
@@ -199,7 +234,9 @@ def dc_mesh_emit(
     bias coordinates) — ids in the payload stay slab-local; the host
     globalizes them with the same offset. Integer layer indices are
     exact in f32, so a sharded voxel's QEF sees bit-identical row values
-    to the single-device render of the whole grid."""
+    to the single-device render of the whole grid. `platform` is the
+    executable's device platform: it picks the QEF row sum (a scatter on
+    the CPU, the atomic-free sorted_segment_sum elsewhere)."""
     nk, nj, ni = grid.shape
     n_layers, ny, nx = nk - 1, nj - 1, ni - 1
     if n_own is None:
@@ -239,10 +276,8 @@ def dc_mesh_emit(
     ).reshape(-1)
 
     # sort-based edge compaction (mc_emit.compact_indices, the block-
-    # hierarchical path): a cumsum+scatter compaction over the 3*nvox
-    # edge mask serialized on TPU — measured ~200 ms of the warm bolt
-    # render; the slot value IS the flat edge id, so t/flip follow by
-    # two surface-sized gathers
+    # hierarchical path); the slot value IS the flat edge id, so t/flip
+    # follow by two surface-sized gathers
     from ..ops import mc_emit as _mc
 
     n_edges = jnp.sum(flags.astype(jnp.int32))
@@ -279,9 +314,9 @@ def dc_mesh_emit(
     # central-difference normals on the compacted set, pre-scaled by
     # 1/norm_step (solution-invariant uniform row scaling, see
     # _dc_mesh_fn). ONE batched distance call over the 6 offset sets: six
-    # separate calls would trace the (deep) tree six more times —
-    # measured minutes of extra Mosaic-free XLA compile on screw
-    # trees — while the concatenated batch costs one extra trace.
+    # separate calls would trace the (deep) tree six more times — and
+    # compile six copies of it on screw trees — while the concatenated
+    # batch costs one extra trace.
     eye = jnp.eye(3, dtype=jnp.float32) * half
     pts6 = jnp.concatenate(
         [pt + eye[0], pt + eye[1], pt + eye[2],
@@ -359,9 +394,15 @@ def dc_mesh_emit(
         ],
         axis=1,
     )  # (5A, 13)
-    sums = jax.ops.segment_sum(
-        payload, seg_ids, num_segments=W, indices_are_sorted=True
-    )  # (W,13)
+    if platform == "cpu":
+        # XLA:CPU adds a sorted scatter in row order; the CPU executables
+        # were pinned bit-exact to each other with this form
+        sums = jax.ops.segment_sum(
+            payload, seg_ids, num_segments=W, indices_are_sorted=True
+        )
+    else:
+        # a GPU scatter-add is atomic: its order changes from run to run
+        sums = sorted_segment_sum(payload, seg_ids, W, _MAX_VOXEL_ROWS)
 
     cnt = jnp.maximum(sums[:, 12], 1.0)
     bias = sums[:, 9:12] / cnt[:, None]
@@ -401,9 +442,9 @@ def dc_mesh_emit(
     # eigenvalue is below the f32 noise floor of M are damped to the
     # bias point (y=0 there) — exactly the regularization's intent.
     # ELEMENTWISE Jacobi: the obvious einsum formulation dispatches
-    # batched 3x3 matmuls, which XLA pads onto the MXU at ~1000x
-    # waste (measured ~2 s of the warm bolt render); explicit
-    # row/column rotations keep everything on the VPU.
+    # batched 3x3 matrix products, which an accelerator may pad onto its
+    # matrix unit and run at reduced precision; explicit row/column
+    # rotations keep everything elementwise f32.
     tr = axx + ayy + azz
     M = {
         (0, 0): axx, (0, 1): axy, (0, 2): axz,
@@ -582,7 +623,8 @@ def _dc_mesh_fn(
         )
         grid = tree.distance(p)
         return dc_mesh_emit(
-            tree, grid, origin, res, A, W, E, half, inv_step, lam
+            tree, grid, origin, res, A, W, E, half, inv_step, lam,
+            platform=device.platform,
         )
 
     if parametric:
@@ -788,14 +830,15 @@ class DualContourRenderer:
             return self._render_host()
         return self._render_device(parametric=parametric)
 
-    # Voxel count above which the MONOLITHIC DC executable hits XLA's
-    # compile wall (measured on the bolt scene: 10M voxels ≈ minutes,
-    # 23.7M exceeded 58 minutes in a healthy window) and rendering
-    # auto-routes through the slab-chunk composition instead — one small
-    # per-chunk executable (~68 s compile) re-dispatched down the grid,
-    # bit-identical triangles (docs/PERFORMANCE.md "Dual contouring").
+    # Voxel count above which rendering auto-routes through the
+    # slab-chunk composition instead of ONE monolithic DC executable
+    # (whose compile time grows steeply with the grid) — one small
+    # per-chunk executable re-dispatched down the grid, bit-identical
+    # triangles. An unmeasured limit on the GPU: it was set by the
+    # compile time of another device.
     mono_voxels = 12_000_000
     # corner-point budget per chunk dispatch on the auto-chunk route
+    # (unmeasured on the GPU, like mono_voxels)
     chunk_points = 4_000_000
 
     def _render_device(self, parametric: bool = False) -> np.ndarray:

@@ -52,7 +52,9 @@ class STLConfig:
     resolution: float = 0.0
     resolution_divisions: int = 1 << 9
     use_cache: bool = False
-    use_gpu: bool = True  # on TPU builds, selects the accelerator device
+    #: True: the first GPU (raises without one); False: the host CPU;
+    #: None: JAX's default device (pipeline.render_device)
+    use_gpu: Optional[bool] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,15 +177,12 @@ class SDF3:
         if res == 0:
             divs = cfg.resolution_divisions or 1 << 9
             res = self.s.bounds().diagonal() / divs
-        # honor use_gpu exactly like save_stl's render_shader3d branch:
-        # use_gpu=False must render on the CPU oracle device even when
-        # an accelerator owns the process default
-        import jax
+        # honor use_gpu exactly like save_stl's render_shader3d branch
+        from .pipeline.render import render_device
 
-        device = (
-            jax.devices()[0] if cfg.use_gpu else jax.devices("cpu")[0]
-        )
-        return FlatRenderer(self.s, res, device=device).render_compact()
+        return FlatRenderer(
+            self.s, res, device=render_device(cfg.use_gpu)
+        ).render_compact()
 
     def save_obj(self, filename: str, cfg: STLConfig = STLConfig()) -> int:
         """Save a welded OBJ mesh (indexed; no crack-welding pass needed —

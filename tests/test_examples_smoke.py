@@ -1,9 +1,9 @@
 """Execute every example PROGRAM end-to-end on the CPU backend.
 
 The reference treats its 12 example programs as the acceptance workloads
-(SURVEY.md §2.8); `examples/acceptance.py` runs the on-chip battery, but
+(SURVEY.md §2.8); `examples/acceptance.py` runs the on-device battery, but
 until this gate nothing executed the programs themselves (argument
-parsing, file outputs, the `_common.render_stl` plumbing) in the no-TPU
+parsing, file outputs, the `_common.render_stl` plumbing) in the CPU-only
 CI configuration — a broken example would only surface on hardware.
 
 Each program runs in-process (one shared JAX context keeps this fast)

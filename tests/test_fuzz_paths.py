@@ -155,6 +155,16 @@ def _random_tree(rng, lipschitz=False):
 
 @pytest.mark.parametrize("seed", _seed_range(10))
 def test_all_paths_agree(seed):
+    _all_paths_agree(seed, None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", _seed_range(4))
+def test_all_paths_agree_gpu(seed, gpu_device):
+    _all_paths_agree(seed, gpu_device)
+
+
+def _all_paths_agree(seed, device):
     rng = np.random.default_rng(seed)
     t = _random_tree(rng)
     if t is None:
@@ -166,16 +176,16 @@ def test_all_paths_agree(seed):
         pytest.skip("degenerate/empty bounds")
     res = bbd / 32
 
-    fused = FlatRenderer(t, res).render(fused=True)
-    staged = FlatRenderer(t, res).render(fused=False)
+    fused = FlatRenderer(t, res, device=device).render(fused=True)
+    staged = FlatRenderer(t, res, device=device).render(fused=False)
     assert len(fused) == len(staged)
     np.testing.assert_allclose(fused, staged, atol=1e-5)
 
-    fr = FlatRenderer(t, res)
+    fr = FlatRenderer(t, res, device=device)
     wv, wt = fr.render_indexed()
     assert len(wt) == len(fused)
 
-    cv, ct = FlatRenderer(t, res).render_compact()
+    cv, ct = FlatRenderer(t, res, device=device).render_compact()
     np.testing.assert_array_equal(ct, wt)
     np.testing.assert_allclose(cv, wv, atol=1e-5)
 
@@ -187,6 +197,16 @@ def test_all_paths_agree(seed):
 
 @pytest.mark.parametrize("seed", _seed_range(5))
 def test_pruned_path_agrees(seed):
+    _pruned_path_agrees(seed, None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", _seed_range(3))
+def test_pruned_path_agrees_gpu(seed, gpu_device):
+    _pruned_path_agrees(seed, gpu_device)
+
+
+def _pruned_path_agrees(seed, device):
     """Pruned-vs-dense compact payload fuzzed on RANDOM trees: ids and
     cases (everything count/topology-derived) must match EXACTLY; the
     edge-interpolation t to a tight ABSOLUTE bound.
@@ -229,12 +249,12 @@ def test_pruned_path_agrees(seed):
         pytest.skip("degenerate/empty bounds")
     res = bbd / 32
 
-    pr = PrunedRenderer(t, res, tile_size=8, tiles_per_batch=128)
+    device = device or jax.devices()[0]
+    pr = PrunedRenderer(t, res, tile_size=8, tiles_per_batch=128, device=device)
     ids_p, cases_p, t_p = pr.compact_payload()
-    fr = FlatRenderer(t, res)
+    fr = FlatRenderer(t, res, device=device)
     ids_d, cases_d, t_d, _ = compact_field_render(
-        t, fr.origin, fr.res, (fr.nz + 1, fr.ny + 1, fr.nx + 1),
-        jax.devices()[0],
+        t, fr.origin, fr.res, (fr.nz + 1, fr.ny + 1, fr.nx + 1), device
     )
     np.testing.assert_array_equal(ids_p, ids_d)
     np.testing.assert_array_equal(cases_p, cases_d)
@@ -253,6 +273,16 @@ def test_pruned_path_agrees(seed):
 
 @pytest.mark.parametrize("seed", _seed_range(5))
 def test_cropped_bounds_paths_agree(seed):
+    _cropped_bounds_paths_agree(seed, None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", _seed_range(3))
+def test_cropped_bounds_paths_agree_gpu(seed, gpu_device):
+    _cropped_bounds_paths_agree(seed, gpu_device)
+
+
+def _cropped_bounds_paths_agree(seed, device):
     """Surfaces CROPPED by a with_bounds domain touch the grid boundary:
     owner-edge references can point outside the grid, where the compact
     decoder must either resolve identically or fall back to the welded
@@ -272,15 +302,31 @@ def test_cropped_bounds_paths_agree(seed):
     t = with_bounds(t, Box(bb.min * 0.6, bb.max * 0.6))
     res = t.bounds().diagonal() / 32
 
-    fr = FlatRenderer(t, res)
+    fr = FlatRenderer(t, res, device=device)
     wv, wt = fr.render_indexed()
-    cv, ct = FlatRenderer(t, res).render_compact()
+    cv, ct = FlatRenderer(t, res, device=device).render_compact()
     np.testing.assert_array_equal(ct, wt)
     np.testing.assert_allclose(cv, wv, atol=1e-5)
 
 
 @pytest.mark.parametrize("seed", _seed_range(3))
 def test_sharded_paths_agree(seed):
+    import jax
+
+    _sharded_paths_agree(seed, jax.devices("cpu")[:8])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", _seed_range(2))
+def test_sharded_paths_agree_gpu(seed, gpu_device):
+    """The same invariant on a mesh of every GPU the host has (one card
+    still runs the sharded executables)."""
+    import jax
+
+    _sharded_paths_agree(seed, jax.devices("gpu"))
+
+
+def _sharded_paths_agree(seed, devices):
     """Random trees through the multi-chip z-slab paths on the 8-vdev
     mesh: sharded compact == single-device compact (identical tri_idx,
     ulp-equal vertices) and sharded DC == single-device DC (same count,
@@ -288,8 +334,6 @@ def test_sharded_paths_agree(seed):
     shard tests (test_parallel.py, test_sharded_dc.py) pin the flagship
     parts bit-exact; this extends the slab-composition invariant to
     arbitrary CSG trees."""
-    import jax
-
     from gsdf_tpu.parallel import make_mesh, render_sharded_compact
     from gsdf_tpu.parallel.sharded_dc import render_dc_sharded
     from gsdf_tpu.render.dual_contour import DualContourRenderer
@@ -305,7 +349,6 @@ def test_sharded_paths_agree(seed):
         pytest.skip("degenerate/empty bounds")
     res = bbd / 24
 
-    devices = jax.devices("cpu")[:8]
     mesh = make_mesh(devices)
 
     sv, st = render_sharded_compact(t, mesh, res)

@@ -1,21 +1,15 @@
-"""Scale golden gates: the multi-million-triangle renders recorded in
-docs/PERFORMANCE.md's scale tables, regression-pinned (reference
-golden-count discipline, glrender/glrender_test.go:83-102, applied at
-scale).
+"""Scale golden gates: multi-million-triangle renders, regression-pinned
+(reference golden-count discipline, glrender/glrender_test.go:83-102,
+applied at scale).
 
-All counts are CPU-oracle-anchored and backend-invariant (the MC family
-was always count-exact across backends; DC became so in round 5 when
-Transform.distance stopped dispatching to the MXU in bf16 — the DC-512
-value below supersedes round 4's chip-measured 401,724, which embedded
-that deviation).
+All counts are CPU-oracle-anchored and backend-invariant: the rotation
+in Transform.distance is written as elementwise f32 mul-adds, so no
+reduced-precision matrix product can move a corner's sign.
 
 CPU variants run where the oracle render stays under ~2 minutes; the
-full set (including flange resdiv-1000) runs on the chip under
-GSDF_TPU_TEST_ACCEL=1 — warm renders are sub-second there, so the gate
-is compile-bound only on the first run after a traced-code change.
+full set (including flange resdiv-1000) is `gpu`-marked and runs on a
+card under `GSDF_TEST_GPU=1 python -m pytest tests -m gpu -p no:xdist`.
 """
-import os
-
 import numpy as np
 import pytest
 
@@ -29,17 +23,6 @@ GOLDEN_FLANGE_800 = 1_704_568
 GOLDEN_FLANGE_1000 = 2_660_772
 GOLDEN_DC_BOLT_384 = 226_340
 GOLDEN_DC_BOLT_512 = 403_104  # >12M voxels: exercises the auto-chunk route
-
-
-def _accel():
-    devs = [d for d in jax.devices() if d.platform != "cpu"]
-    return devs[0] if devs else None
-
-
-requires_accel = pytest.mark.skipif(
-    _accel() is None or not os.environ.get("GSDF_TPU_TEST_ACCEL"),
-    reason="accelerator scale gates need GSDF_TPU_TEST_ACCEL=1",
-)
 
 
 @pytest.mark.slow
@@ -66,39 +49,39 @@ def test_dc_bolt_512_chunked_cpu():
 
 
 @pytest.mark.slow
-@requires_accel
-def test_flange_800_accel():
+@pytest.mark.gpu
+def test_flange_800_accel(gpu_device):
     obj = build_flange()
     res = obj.bounds().diagonal() / 800
-    _, tri = FlatRenderer(obj, res, device=_accel()).render_compact()
+    _, tri = FlatRenderer(obj, res, device=gpu_device).render_compact()
     assert len(tri) == GOLDEN_FLANGE_800
 
 
 @pytest.mark.slow
-@requires_accel
-def test_flange_1000_accel():
+@pytest.mark.gpu
+def test_flange_1000_accel(gpu_device):
     """2.66M triangles (105M corners) — CPU-prohibitive (~4 min), so the
-    full-res gate runs on the chip; the count is still oracle-anchored
+    full-res gate runs on the card; the count is still oracle-anchored
     (MC counts are backend-invariant, pinned by the 400/800 pairs)."""
     obj = build_flange()
     res = obj.bounds().diagonal() / 1000
-    _, tri = FlatRenderer(obj, res, device=_accel()).render_compact()
+    _, tri = FlatRenderer(obj, res, device=gpu_device).render_compact()
     assert len(tri) == GOLDEN_FLANGE_1000
 
 
 @pytest.mark.slow
-@requires_accel
-def test_dc_bolt_384_accel():
+@pytest.mark.gpu
+def test_dc_bolt_384_accel(gpu_device):
     bolt = build_bolt()
     res = bolt.bounds().diagonal() / 384
-    tris = DualContourRenderer(bolt, res, device=_accel()).render()
+    tris = DualContourRenderer(bolt, res, device=gpu_device).render()
     assert len(tris) == GOLDEN_DC_BOLT_384
 
 
 @pytest.mark.slow
-@requires_accel
-def test_dc_bolt_512_chunked_accel():
+@pytest.mark.gpu
+def test_dc_bolt_512_chunked_accel(gpu_device):
     bolt = build_bolt()
     res = bolt.bounds().diagonal() / 512
-    tris = DualContourRenderer(bolt, res, device=_accel()).render()
+    tris = DualContourRenderer(bolt, res, device=gpu_device).render()
     assert len(tris) == GOLDEN_DC_BOLT_512

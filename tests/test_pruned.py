@@ -54,29 +54,6 @@ def test_render_all_helper():
     assert len(tris) > 100
 
 
-def test_pallas_grid_eval_matches():
-    """Pallas kernel path (interpret mode on CPU) must agree with the XLA
-    fused path for scalar-parameter trees."""
-    import jax
-
-    from gsdf_tpu.eval import evaluate_grid
-    from gsdf_tpu.eval.pallas_grid import HAS_PALLAS, evaluate_grid_pallas
-
-    if not HAS_PALLAS:
-        pytest.skip("pallas unavailable")
-    s = bld.union(
-        bld.new_sphere(0.6),
-        bld.new_cylinder(0.3, 1.2, 0.0),
-    )
-    shape = (4, 16, 140)
-    origin = np.array([-0.7, -0.7, -0.2], np.float32)
-    res = np.float32(0.01)
-    dev = jax.devices("cpu")[0]
-    g_pallas = np.asarray(evaluate_grid_pallas(s, origin, res, shape, dev))
-    g_xla = np.asarray(evaluate_grid(s, origin, res, shape, dev))
-    np.testing.assert_allclose(g_pallas, g_xla, atol=1e-6)
-
-
 def test_pruned_compact_payload_matches_dense():
     """The tile-pruned compact payload must equal the dense compact-field
     payload exactly (ids, cases, tvals) — merge_compact_payloads restores
@@ -112,18 +89,14 @@ def test_pruned_compact_payload_matches_dense():
     assert pr.total_pruned() > 0
 
 
-def test_pruned_compact_payload_bitexact_accel():
-    """On the accelerator the pruned tile-atlas payload (ids, cases AND
-    t) bit-matches the dense compact payload through the FUSED synthesis
-    path — the TPU backend compiles elementwise math without the
-    shape-dependent FMA contraction that forced the CPU backend onto
-    mc_emit.canonical_grid_eval. This gate is the standing evidence for
-    that asymmetry (canonical_grid_eval docstring)."""
-    import jax
-
-    devs = [d for d in jax.devices() if d.platform != "cpu"]
-    if not devs:
-        pytest.skip("no accelerator")
+@pytest.mark.gpu
+def test_pruned_compact_payload_bitexact_accel(gpu_device):
+    """On the GPU the pruned tile-atlas payload (ids, cases AND t)
+    bit-matches the dense compact payload through the FUSED synthesis
+    path: XLA:GPU compiles each element's math the same way whatever the
+    array's shape, unlike the CPU backend's vectorized loops, which is
+    why only the CPU routes through mc_emit.canonical_grid_eval. This
+    gate is the standing evidence for that asymmetry."""
     from gsdf_tpu.ops.compact_field import compact_field_render
 
     s = bld.difference(
@@ -131,12 +104,12 @@ def test_pruned_compact_payload_bitexact_accel():
         bld.new_cylinder(0.3, 4.0, 0.0),
     )
     res = 0.05
-    pr = PrunedRenderer(s, res, tile_size=8, tiles_per_batch=256, device=devs[0])
+    pr = PrunedRenderer(s, res, tile_size=8, tiles_per_batch=256, device=gpu_device)
     ids_p, cases_p, t_p = pr.compact_payload()
-    fr = FlatRenderer(s, res, device=devs[0])
+    fr = FlatRenderer(s, res, device=gpu_device)
     nk, nj, ni = fr.nz + 1, fr.ny + 1, fr.nx + 1
     ids_d, cases_d, t_d, _ = compact_field_render(
-        s, fr.origin, fr.res, (nk, nj, ni), devs[0]
+        s, fr.origin, fr.res, (nk, nj, ni), gpu_device
     )
     np.testing.assert_array_equal(ids_p, ids_d)
     np.testing.assert_array_equal(cases_p, cases_d)
