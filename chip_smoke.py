@@ -44,17 +44,6 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# (label, flagships builder, resdiv, route, exact golden triangle count):
-# gsdf_tpu.flagships' four goldens, the DC bolt of tests/test_dual_contour
-# and the flange-1000 scale gate of tests/test_golden_scale
-GOLDENS = (
-    ("flange", "build_flange", 400, "stl", 423_852),
-    ("showerhead", "build_showerhead", 350, "compact", 309_872),
-    ("bolt", "build_bolt", 300, "compact", 137_536),
-    ("knurled", "build_knurled", 350, "compact", 616_324),
-    ("bolt", "build_bolt", 256, "dc", 99_844),
-    ("flange", "build_flange", 1000, "compact", 2_660_772),
-)
 PARTS = ("build_flange", "build_showerhead", "build_bolt", "build_knurled")
 REF_POINTS = 1 << 24
 REF_BOUND = 1e-6  # max |d_gpu - d_cpu| over the part's bounding diagonal
@@ -135,10 +124,25 @@ def render_count(tree, resdiv, route, device) -> int:
     raise ValueError(f"unknown route {route!r}")
 
 
-def phase_goldens(device, card: str, cases=GOLDENS) -> None:
+def golden_cases():
+    """(label, flagships builder, resdiv, route, exact golden triangle
+    count) for the six goldens of gsdf_tpu.flagships."""
+    from gsdf_tpu import flagships as f
+
+    return (
+        ("flange", "build_flange", 400, "stl", f.GOLDEN_FLANGE_TRIS),
+        ("showerhead", "build_showerhead", 350, "compact", f.GOLDEN_SHOWERHEAD_TRIS),
+        ("bolt", "build_bolt", 300, "compact", f.GOLDEN_BOLT_TRIS),
+        ("knurled", "build_knurled", 350, "compact", f.GOLDEN_KNURLED_TRIS),
+        ("bolt", "build_bolt", 256, "dc", f.GOLDEN_DC_BOLT_256_TRIS),
+        ("flange", "build_flange", 1000, "compact", f.GOLDEN_FLANGE_1000_TRIS),
+    )
+
+
+def phase_goldens(device, card: str, cases=None) -> None:
     """Every case is rendered and reported; then any miss fails."""
     misses = []
-    for label, builder, resdiv, route, golden in cases:
+    for label, builder, resdiv, route, golden in cases or golden_cases():
         tree = _build(builder)
         t0 = time.perf_counter()
         n_cold = render_count(tree, resdiv, route, device)
@@ -269,6 +273,7 @@ def phase_memory(device, resdiv=1000) -> None:
 
 
 def phase_four(devices, mc_resdiv=1000, dc_resdiv=256) -> None:
+    from gsdf_tpu.flagships import GOLDEN_FLANGE_1000_TRIS
     from gsdf_tpu.parallel import make_mesh, render_dc_sharded, render_sharded_compact
     from gsdf_tpu.render.dual_contour import DualContourRenderer
     from gsdf_tpu.render.flat import FlatRenderer
@@ -287,8 +292,10 @@ def phase_four(devices, mc_resdiv=1000, dc_resdiv=256) -> None:
     if not np.array_equal(st, ct):
         raise AssertionError("sharded compact tri_idx differs from one card")
     np.testing.assert_allclose(sv, cv, atol=1e-6 * res)
-    if mc_resdiv == 1000 and len(st) != 2_660_772:
-        raise AssertionError(f"flange resdiv 1000: {len(st)} != 2660772")
+    if mc_resdiv == 1000 and len(st) != GOLDEN_FLANGE_1000_TRIS:
+        raise AssertionError(
+            f"flange resdiv 1000: {len(st)} != {GOLDEN_FLANGE_1000_TRIS}"
+        )
 
     bolt = _build("build_bolt")
     res = _res(bolt, dc_resdiv)

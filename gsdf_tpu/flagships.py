@@ -25,16 +25,21 @@ from .core import Builder
 # Bolt/knurled counts have no reference number: they are the counts of
 # the corner grid evaluated in FLOAT64 at the f32 pipeline's own corner
 # positions (pinned in tests/test_bringup.py; the flange/showerhead
-# counts equal theirs too). The f32 GPU render gives all four. The CPU
-# backend's f32 render gives 137,528 for the bolt: one corner lies
-# 5e-9 inside the thread flank, and XLA:CPU's FMA contraction rounds it
-# to +2.4e-7. Every f32 count within a few corners of the surface
-# depends on such rounding; the float64 count does not.
+# counts equal theirs too). The f32 GPU render gives all four.
 GOLDEN_FLANGE_TRIS = 423852  # resdiv 400
 GOLDEN_SHOWERHEAD_TRIS = 309872  # resdiv 350
 GOLDEN_BOLT_TRIS = 137536  # resdiv 300 (float64 count)
 GOLDEN_KNURLED_TRIS = 616324  # resdiv 350 (float64 count)
-
+# The CPU backend's f32 render of the bolt at resdiv 300 departs from the
+# float64 count by one corner: it lies 5.1e-9 inside the thread flank, and
+# XLA:CPU's fused executable rounds it to +2.4e-7 (the GPU, and the CPU run
+# one equation at a time, keep it negative). Pinned so that a change of
+# the CPU's rounding shows; examples/sign_diagnosis.py finds such corners.
+CPU_F32_BOLT_TRIS = 137528
+# scale gates: the flange at resdiv 1000 (102M cubes) through the compact
+# path, and the bolt at resdiv 256 through the dual-contour renderer
+GOLDEN_FLANGE_1000_TRIS = 2660772
+GOLDEN_DC_BOLT_256_TRIS = 99844
 
 def flange_scene(bld: Builder):
     """Threaded NPT pipe fitting with base plate — the reference's README

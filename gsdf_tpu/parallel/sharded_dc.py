@@ -111,7 +111,7 @@ def sharded_dc_step(
         grid = tree.distance(p)  # slab + 2 halo planes
         return dc_mesh_emit(
             tree, grid, origin, res, A, W, E, half, inv_step, lam,
-            k0=k0, n_own=c, platform=mesh.devices.flat[0].platform,
+            k0=k0, n_own=c,
         )[None]
 
     if parametric:

@@ -213,7 +213,7 @@ def sorted_segment_sum(data, seg_ids, num_segments, max_rows):
 
 def dc_mesh_emit(
     tree, grid, origin, res, a_size, w_size, e_size, half, inv_step, lam,
-    k0=None, n_own=None, *, platform,
+    k0=None, n_own=None,
 ):
     """The ONE dual-contour mesh emit (CLAUDE.md one-emit discipline,
     mirroring ops/mc_emit for marching cubes): active-edge compaction ->
@@ -234,9 +234,7 @@ def dc_mesh_emit(
     bias coordinates) — ids in the payload stay slab-local; the host
     globalizes them with the same offset. Integer layer indices are
     exact in f32, so a sharded voxel's QEF sees bit-identical row values
-    to the single-device render of the whole grid. `platform` is the
-    executable's device platform: it picks the QEF row sum (a scatter on
-    the CPU, the atomic-free sorted_segment_sum elsewhere)."""
+    to the single-device render of the whole grid."""
     nk, nj, ni = grid.shape
     n_layers, ny, nx = nk - 1, nj - 1, ni - 1
     if n_own is None:
@@ -394,15 +392,19 @@ def dc_mesh_emit(
         ],
         axis=1,
     )  # (5A, 13)
-    if platform == "cpu":
-        # XLA:CPU adds a sorted scatter in row order; the CPU executables
-        # were pinned bit-exact to each other with this form
-        sums = jax.ops.segment_sum(
-            payload, seg_ids, num_segments=W, indices_are_sorted=True
-        )
-    else:
-        # a GPU scatter-add is atomic: its order changes from run to run
-        sums = sorted_segment_sum(payload, seg_ids, W, _MAX_VOXEL_ROWS)
+    # Off the CPU not a scatter-add: on the GPU one is atomic, and its
+    # order changes from run to run. The CPU keeps the scatter: its sums
+    # are bit-identical to sorted_segment_sum's, but after the gathers
+    # XLA:CPU fuses (and contracts) the solve below differently in the
+    # single-device and the sharded executables, and
+    # test_sharded_dc.py::test_dc_sharded_chiseled_bitexact fails.
+    sums = jax.lax.platform_dependent(
+        payload, seg_ids,
+        cpu=lambda d, s: jax.ops.segment_sum(
+            d, s, num_segments=W, indices_are_sorted=True
+        ),
+        default=lambda d, s: sorted_segment_sum(d, s, W, _MAX_VOXEL_ROWS),
+    )
 
     cnt = jnp.maximum(sums[:, 12], 1.0)
     bias = sums[:, 9:12] / cnt[:, None]
@@ -623,8 +625,7 @@ def _dc_mesh_fn(
         )
         grid = tree.distance(p)
         return dc_mesh_emit(
-            tree, grid, origin, res, A, W, E, half, inv_step, lam,
-            platform=device.platform,
+            tree, grid, origin, res, A, W, E, half, inv_step, lam
         )
 
     if parametric:

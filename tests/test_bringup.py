@@ -1,8 +1,9 @@
 """CPU checks of what the GPU bring-up relies on: the compile-cache
 location, chip_smoke's phases at tiny sizes and its refusal of a CPU
 backend, the benchmark's refusal of a CPU backend, the roofline peak
-table, the float64 provenance of the flagship goldens, matrix-product-free
-flagship trees, the atomic-free QEF row sum and the atan2 seam."""
+table, the float64 provenance of the flagship goldens and the CPU's one
+known departure from them, matrix-product-free flagship trees, the
+atomic-free QEF row sum and the atan2 seam."""
 import os
 import subprocess
 import sys
@@ -171,7 +172,7 @@ def test_dc_bolt_emit_has_no_matrix_product():
     def emit(grid):
         return dc_mesh_emit(
             bolt, grid, origin, jnp.float32(0.1), 1024, 512, 64,
-            0.05, 10.0, 1e-3, platform="gpu",
+            0.05, 10.0, 1e-3,
         )
 
     closed = jax.make_jaxpr(emit)(jax.ShapeDtypeStruct((9, 9, 9), jnp.float32))
@@ -259,3 +260,41 @@ def test_flagship_golden_is_float64_count(builder, resdiv, golden):
     from gsdf_tpu import flagships
 
     assert _float64_mc_count(builder, resdiv) == getattr(flagships, golden)
+
+
+def test_cpu_f32_bolt_count():
+    """The CPU's own f32 render of the bolt at resdiv 300 is one corner
+    off the float64 golden (flagships.CPU_F32_BOLT_TRIS)."""
+    from gsdf_tpu import flagships
+    from gsdf_tpu.render.flat import FlatRenderer
+
+    bolt = flagships.build_bolt()
+    fr = FlatRenderer(bolt, bolt.bounds().diagonal() / 300, device=jax.devices("cpu")[0])
+    assert len(fr.render_compact()[1]) == flagships.CPU_F32_BOLT_TRIS
+    assert flagships.CPU_F32_BOLT_TRIS != flagships.GOLDEN_BOLT_TRIS
+
+
+def test_sign_diagnosis_bolt_corner_cpu():
+    """The corner behind CPU_F32_BOLT_TRIS (the one corner whose sign the
+    GPU and the CPU render differently): inside in float64 and when the
+    CPU runs the tree one equation at a time; outside only in the CPU's
+    fused grid executable."""
+    import sign_diagnosis as sd
+    from gsdf_tpu.flagships import build_bolt
+
+    bolt = build_bolt()
+    cpu = jax.devices("cpu")[0]
+    origin, res, grid = sd.corner_grid(bolt, 300, cpu)
+    pts = sd.corner_positions(origin, res, np.array([[71, 100, 71]]))
+    eager, trace = sd.eqn_by_eqn(bolt, pts, cpu)
+    assert grid[71, 100, 71] > 0
+    assert sd.eval_float64(bolt, pts)[0] < 0 and eager[0] < 0
+    assert {e.primitive.name for e, _ in trace} >= {"atan2", "div", "mul"}
+
+
+def test_sign_diagnosis_runs_cpu(capsys):
+    import sign_diagnosis as sd
+
+    sd.main(["--cpu", "--parts", "bolt,knurled", "--resdiv", "40"])
+    out = capsys.readouterr().out
+    assert out.count(": 0 sign flips") == 2, out

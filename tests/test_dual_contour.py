@@ -5,6 +5,7 @@ import numpy as np
 import pytest
 
 from gsdf_tpu import Builder
+from gsdf_tpu.flagships import GOLDEN_DC_BOLT_256_TRIS
 from gsdf_tpu.render.dual_contour import DualContourLeastSquares, DualContourRenderer
 
 bld = Builder()
@@ -179,20 +180,20 @@ def _bolt_scene():
 
 def test_dc_bolt_golden_count():
     """Golden DC anchor: the bolt scene at resdiv 256 produces EXACTLY
-    99,844 triangles on the CPU backend, identically on the device-QEF
-    and host-oracle paths, bit-stable across renders. The golden is
-    CPU-pinned (the oracle backend per CLAUDE.md); the accelerator's own
-    exact anchor is test_dc_bolt_golden_count_accel below."""
+    99,844 triangles (flagships.GOLDEN_DC_BOLT_256_TRIS) on the CPU
+    backend, identically on the device-QEF and host-oracle paths,
+    bit-stable across renders. The accelerator's own exact anchor is
+    test_dc_bolt_golden_count_accel below."""
     import jax
 
     cpu = jax.devices("cpu")[0]
     m3, res = _bolt_scene()
     t1 = DualContourRenderer(m3, res, device=cpu).render()
-    assert len(t1) == 99844
+    assert len(t1) == GOLDEN_DC_BOLT_256_TRIS
     t2 = DualContourRenderer(m3, res, device=cpu).render()
     np.testing.assert_array_equal(t1, t2)  # bit-stable
     th = DualContourRenderer(m3, res, device=cpu, host_qef=True).render()
-    assert len(th) == 99844
+    assert len(th) == GOLDEN_DC_BOLT_256_TRIS
 
 
 @pytest.mark.gpu
@@ -206,7 +207,7 @@ def test_dc_bolt_golden_count_accel(gpu_device):
     never a tolerance to widen."""
     m3, res = _bolt_scene()
     t1 = DualContourRenderer(m3, res, device=gpu_device).render()
-    assert len(t1) == 99844
+    assert len(t1) == GOLDEN_DC_BOLT_256_TRIS
     t2 = DualContourRenderer(m3, res, device=gpu_device).render()
     np.testing.assert_array_equal(t1, t2)  # bit-stable on the card
 

@@ -2,8 +2,13 @@
 (reference golden-count discipline, glrender/glrender_test.go:83-102,
 applied at scale).
 
-All counts are CPU-oracle-anchored and backend-invariant: the rotation
-in Transform.distance is written as elementwise f32 mul-adds, so no
+The counts were rendered on the CPU backend and hold on the GPU too
+(chip_smoke.py, PERF.md). That is not a law: an f32 count depends on how
+each backend rounds the few corners that lie within ~1e-7 of the surface.
+The bolt at resdiv 300 is the one known case where the CPU's f32 render
+(137,528) departs from the float64 count that is the golden (137,536;
+gsdf_tpu/flagships.py, tests/test_bringup.py). The rotation in
+Transform.distance is written as elementwise f32 mul-adds, so no
 reduced-precision matrix product can move a corner's sign.
 
 CPU variants run where the oracle render stays under ~2 minutes; the
@@ -15,12 +20,11 @@ import pytest
 
 import jax
 
-from gsdf_tpu.flagships import build_bolt, build_flange
+from gsdf_tpu.flagships import GOLDEN_FLANGE_1000_TRIS, build_bolt, build_flange
 from gsdf_tpu.render.dual_contour import DualContourRenderer
 from gsdf_tpu.render.flat import FlatRenderer
 
 GOLDEN_FLANGE_800 = 1_704_568
-GOLDEN_FLANGE_1000 = 2_660_772
 GOLDEN_DC_BOLT_384 = 226_340
 GOLDEN_DC_BOLT_512 = 403_104  # >12M voxels: exercises the auto-chunk route
 
@@ -61,12 +65,11 @@ def test_flange_800_accel(gpu_device):
 @pytest.mark.gpu
 def test_flange_1000_accel(gpu_device):
     """2.66M triangles (105M corners) — CPU-prohibitive (~4 min), so the
-    full-res gate runs on the card; the count is still oracle-anchored
-    (MC counts are backend-invariant, pinned by the 400/800 pairs)."""
+    full-res gate runs on the card; the count is the CPU render's."""
     obj = build_flange()
     res = obj.bounds().diagonal() / 1000
     _, tri = FlatRenderer(obj, res, device=gpu_device).render_compact()
-    assert len(tri) == GOLDEN_FLANGE_1000
+    assert len(tri) == GOLDEN_FLANGE_1000_TRIS
 
 
 @pytest.mark.slow

@@ -12,11 +12,14 @@ Full-resolution renders on the CPU oracle — marked slow; run with
 import numpy as np
 import pytest
 
+from gsdf_tpu.flagships import (
+    GOLDEN_DC_BOLT_256_TRIS,
+    GOLDEN_FLANGE_TRIS as GOLDEN_FLANGE,  # resdiv 400 (reference README.md:116)
+    GOLDEN_SHOWERHEAD_TRIS as GOLDEN_SHOWERHEAD,  # resdiv 350 (README.md:152)
+)
 from gsdf_tpu.render.flat import FlatRenderer
 
-GOLDEN_FLANGE = 423852  # npt-flange resdiv 400 (reference README.md:116)
 GOLDEN_FLANGE_RES = 0.21679485
-GOLDEN_SHOWERHEAD = 309872  # fibonacci-showerhead resdiv 350 (README.md:152)
 
 
 @pytest.mark.slow
@@ -106,7 +109,7 @@ def test_dc_bolt_sharded_golden():
 
     mesh = make_mesh(jax.devices("cpu")[:8])
     t_sharded = render_dc_sharded(m3, mesh, res)
-    assert len(t_sharded) == 99844
+    assert len(t_sharded) == GOLDEN_DC_BOLT_256_TRIS
     t_single = DualContourRenderer(
         m3, res, device=jax.devices("cpu")[0]
     ).render()
